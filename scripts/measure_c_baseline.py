@@ -17,8 +17,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tests"))
 import numpy as np
 
 from _refbinary import build_reference
-from instruct_tpu.data.loader import write_panel
-from instruct_tpu.data.synthetic import synthetic_panel
+from instruct_jax.data.loader import write_panel
+from instruct_jax.data.synthetic import synthetic_panel
 
 N, L, K = 1000, 10_000, 3
 

@@ -1,10 +1,10 @@
 """Measure multi-host chains/s weak-scaling efficiency on CPU.
 
 The north-star asks >=80% chains/s efficiency from 1 host to N>=2 hosts
-(BASELINE.md).  Real multi-host TPU hardware is unavailable in this
-environment, so the measurement uses the same `jax.distributed` code path
-with N core-pinned CPU processes (1 XLA device each, localhost grpc as
-the DCN analogue) and 2 chains per process:
+(BASELINE.md).  This script measures the `jax.distributed` code path with
+N core-pinned CPU processes (1 XLA device each, localhost grpc between
+them) and 2 chains per process — the dispatch and coordination overhead,
+not a device rate:
 
     efficiency = chains_steps_per_sec(N procs) /
                  (N * chains_steps_per_sec(1 proc))

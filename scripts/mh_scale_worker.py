@@ -5,7 +5,7 @@ steady-state chains/s of run_mcmc over a process-spanning chain mesh.
 Usage: mh_scale_worker.py <pid> <nprocs> <port> <out_json>
 Env: MH_AFFINITY=<core> pins the process; one XLA CPU device per process
 (weak scaling: 2 chains per process, work per step sized to swamp
-dispatch and the DCN-analogue grpc collectives).
+dispatch and the localhost grpc collectives).
 """
 
 import json
@@ -27,7 +27,7 @@ def main():
     pid, nprocs, port = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
     out_path = sys.argv[4]
 
-    from instruct_tpu.parallel.distributed import (global_chain_mesh,
+    from instruct_jax.parallel.distributed import (global_chain_mesh,
                                                    initialize_multihost)
     if nprocs > 1:
         initialize_multihost(coordinator_address=f"localhost:{port}",
@@ -35,9 +35,9 @@ def main():
 
     import numpy as np
 
-    from instruct_tpu.config import ModelSpec, Schedule
-    from instruct_tpu.data.synthetic import synthetic_panel
-    from instruct_tpu.mcmc.driver import run_mcmc
+    from instruct_jax.config import ModelSpec, Schedule
+    from instruct_jax.data.synthetic import synthetic_panel
+    from instruct_jax.mcmc.driver import run_mcmc
 
     panel = synthetic_panel(n_indv=200, n_loci=2000, n_pops=2, seed=11)
     spec = ModelSpec(mode=2, n_pops=2, use_pallas=False)

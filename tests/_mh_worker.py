@@ -24,7 +24,7 @@ def main():
     port = int(sys.argv[2])
     out_path = sys.argv[3]
 
-    from instruct_tpu.parallel.distributed import (global_chain_mesh,
+    from instruct_jax.parallel.distributed import (global_chain_mesh,
                                                    initialize_multihost)
     initialize_multihost(coordinator_address=f"localhost:{port}",
                          num_processes=2, process_id=pid)
@@ -33,9 +33,9 @@ def main():
 
     import numpy as np
 
-    from instruct_tpu.config import ModelSpec, Schedule
-    from instruct_tpu.data.synthetic import synthetic_panel
-    from instruct_tpu.mcmc.driver import run_mcmc
+    from instruct_jax.config import ModelSpec, Schedule
+    from instruct_jax.data.synthetic import synthetic_panel
+    from instruct_jax.mcmc.driver import run_mcmc
 
     panel = synthetic_panel(n_indv=30, n_loci=24, n_pops=2, seed=11)
     spec = ModelSpec(mode=2, n_pops=2, use_pallas=False)

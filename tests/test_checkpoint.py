@@ -7,9 +7,9 @@ import shutil
 import jax
 import numpy as np
 
-from instruct_tpu.config import ModelSpec, Schedule
-from instruct_tpu.data.synthetic import synthetic_panel
-from instruct_tpu.mcmc.driver import run_mcmc
+from instruct_jax.config import ModelSpec, Schedule
+from instruct_jax.data.synthetic import synthetic_panel
+from instruct_jax.mcmc.driver import run_mcmc
 
 SCHED = Schedule(n_iter=60, burnin=20, thinning=2, n_chains=2, ckrep=5,
                  nstep_check_empty_cluster=5)
@@ -51,7 +51,7 @@ def test_checkpoint_format_v2_field_path_keys(tmp_path):
     reordering state fields does not silently shift leaves (ADVICE r1)."""
     import json
 
-    from instruct_tpu import checkpoint as ckpt
+    from instruct_jax import checkpoint as ckpt
 
     panel = synthetic_panel(n_indv=6, n_loci=5, n_pops=2, seed=1)
     spec = ModelSpec(mode=2, n_pops=2)
@@ -68,7 +68,7 @@ def test_checkpoint_format_v2_field_path_keys(tmp_path):
 def test_checkpoint_legacy_v1_restorable(tmp_path):
     """A round-1 checkpoint (positional leaf_<i> keys, no meta file) still
     restores when the pytree structure matches."""
-    from instruct_tpu import checkpoint as ckpt
+    from instruct_jax import checkpoint as ckpt
 
     payload = ({"a": np.arange(4.0), "b": np.int32(7)},
                np.ones((2, 3), np.float32))
@@ -95,7 +95,7 @@ def test_v2_tetra_checkpoint_rejected(tmp_path):
     import orbax.checkpoint as ocp
     import pytest
 
-    from instruct_tpu import checkpoint as ckpt
+    from instruct_jax import checkpoint as ckpt
 
     payload = {"geno": np.zeros((3, 8), np.int8),
                "rates": np.ones(2, np.float32)}
@@ -113,8 +113,8 @@ def test_v2_tetra_checkpoint_rejected(tmp_path):
 def test_resume_recomputes_zcounts(tmp_path):
     """zcounts is derived state: a resumed run must recompute it from the
     restored z, not trust the saved value (fused/XLA path transfer)."""
-    from instruct_tpu import checkpoint as ckpt
-    from instruct_tpu.mcmc import updates as up
+    from instruct_jax import checkpoint as ckpt
+    from instruct_jax.mcmc import updates as up
 
     panel = synthetic_panel(n_indv=8, n_loci=6, n_pops=2, seed=9)
     spec = ModelSpec(mode=2, n_pops=2)
@@ -126,8 +126,8 @@ def test_resume_recomputes_zcounts(tmp_path):
     import shutil as sh
     sh.rmtree(d / "step_000000000060")
     step = ckpt.latest_step(str(d))
-    from instruct_tpu.mcmc.accumulators import init_accum
-    from instruct_tpu.mcmc.state import init_state
+    from instruct_jax.mcmc.accumulators import init_accum
+    from instruct_jax.mcmc.state import init_state
     tmpl_state = jax.vmap(
         lambda c: init_state(jax.random.fold_in(jax.random.key(2), c),
                              spec, panel.data))(np.arange(2))
@@ -160,7 +160,7 @@ def test_checkpointed_run_retries_unhealthy(tmp_path, monkeypatch):
     `checkpoint_dir is None` guard silently kept bad chains exactly in the
     long production runs where the reference's chn-- retry matters,
     InStruct.c:185-190)."""
-    from instruct_tpu.mcmc import driver as drv
+    from instruct_jax.mcmc import driver as drv
 
     panel = synthetic_panel(n_indv=10, n_loci=8, n_pops=2, seed=3)
     spec = ModelSpec(mode=2, n_pops=2)

@@ -8,9 +8,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from instruct_tpu.cli import main
-from instruct_tpu.data.loader import write_panel
-from instruct_tpu.data.synthetic import synthetic_panel
+from instruct_jax.cli import main
+from instruct_jax.data.loader import write_panel
+from instruct_jax.data.synthetic import synthetic_panel
 
 
 @pytest.fixture()

@@ -4,7 +4,7 @@ form."""
 
 import numpy as np
 
-from instruct_tpu.diagnostics import (effective_sample_size,
+from instruct_jax.diagnostics import (effective_sample_size,
                                       effective_sample_size_batch,
                                       gelman_rubin)
 

@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec, Schedule
-from instruct_tpu.data.synthetic import synthetic_panel
-from instruct_tpu.kselect import infer_k
-from instruct_tpu.mcmc.driver import run_mcmc
-from instruct_tpu.model import likelihood as lk
+from instruct_jax.config import ModelSpec, Schedule
+from instruct_jax.data.synthetic import synthetic_panel
+from instruct_jax.kselect import infer_k
+from instruct_jax.mcmc.driver import run_mcmc
+from instruct_jax.model import likelihood as lk
 
 
 def _brute_marginal(spec, data, freq, q, gen, rates):
@@ -141,7 +141,7 @@ def test_kselect_recovers_true_k_tetraploid():
     (VERDICT r4 missing #1: `-ik -p 4` used to rank on the degenerate
     reference DIC = -2 E[logL] with zero complexity penalty, which can
     never prefer a smaller K)."""
-    from instruct_tpu.data.synthetic import synthetic_tetra_panel
+    from instruct_jax.data.synthetic import synthetic_tetra_panel
 
     panel = synthetic_tetra_panel(n_indv=60, n_loci=60, n_pops=2,
                                   n_alleles=2, autopoly=True,

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec, Priors, PriorFamily, Schedule
-from instruct_tpu.data.synthetic import synthetic_panel
-from instruct_tpu.mcmc import dpm
-from instruct_tpu.mcmc.driver import run_mcmc
+from instruct_jax.config import ModelSpec, Priors, PriorFamily, Schedule
+from instruct_jax.data.synthetic import synthetic_panel
+from instruct_jax.mcmc import dpm
+from instruct_jax.mcmc.driver import run_mcmc
 
 
 def table_ok(t: dpm.DpmTable, n):
@@ -70,7 +70,7 @@ def test_f_loglik_grid_matches_pointwise():
     got = np.asarray(dpm.f_loglik_grid(ModelSpec(mode=5, n_pops=2), data,
                                        freq, z, m=m))
     # brute force with the site formulas
-    from instruct_tpu.model import likelihood as lk
+    from instruct_jax.model import likelihood as lk
     for mi in [0, 7, 15]:
         f = jnp.full((n,), grid[mi], jnp.float32)
         pz = lk.gather_freq_at_z(freq, data, z)
@@ -84,7 +84,7 @@ def test_f_loglik_grid_matches_pointwise():
 
 
 def test_f_loglik_grid_matmul_matches_dense():
-    # The MXU masked-matmul formulation must reproduce the dense [N, L, M]
+    # The masked-matmul formulation must reproduce the dense [N, L, M]
     # contraction exactly (up to matmul summation order), including
     # multiallelic loci and missing sites.
     panel = synthetic_panel(n_indv=23, n_loci=40, n_pops=3, seed=11,
@@ -186,8 +186,8 @@ def test_dp_truncation_validated():
     ValueError, not a trace-time shape mismatch (ADVICE r1)."""
     import pytest
 
-    from instruct_tpu.config import PriorFamily, Priors
-    from instruct_tpu.mcmc.dpm import build_dpm_update
+    from instruct_jax.config import PriorFamily, Priors
+    from instruct_jax.mcmc.dpm import build_dpm_update
 
     panel = synthetic_panel(n_indv=12, n_loci=6, n_pops=2, seed=0)
     for bad in (-1, 1, 13, 10_000):

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec, Schedule
-from instruct_tpu.data.synthetic import synthetic_panel
-from instruct_tpu.diagnostics import gelman_rubin
-from instruct_tpu.mcmc.driver import run_mcmc
+from instruct_jax.config import ModelSpec, Schedule
+from instruct_jax.data.synthetic import synthetic_panel
+from instruct_jax.diagnostics import gelman_rubin
+from instruct_jax.mcmc.driver import run_mcmc
 
 
 SCHED = Schedule(n_iter=60, burnin=20, thinning=2, n_chains=2, ckrep=5,
@@ -112,7 +112,7 @@ def test_structure_way_generator_recovery():
     calibration, not a tolerance blip."""
     import numpy as np
 
-    from instruct_tpu.data.dataset import make_dataset
+    from instruct_jax.data.dataset import make_dataset
 
     def structure_way_panel(n, l, k, s_rates, alpha, seed):
         rng = np.random.default_rng(seed)

@@ -1,7 +1,10 @@
-"""Fused Pallas step kernels (interpret mode on CPU) vs the XLA path.
+"""Fused Pallas step kernels (Triton route, interpret mode on CPU) vs the
+XLA path.
 
 Fed the same uniforms, the kernels must reproduce the XLA formulas exactly:
 same z draws, same counts, same log-likelihoods (within f32 tolerance).
+Without injected uniforms the in-kernel counter hash must give draws that
+do not depend on the block shape.
 """
 
 import jax
@@ -9,12 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec
-from instruct_tpu.data.synthetic import synthetic_panel
-from instruct_tpu.kernels import fused_step as fs
-from instruct_tpu.mcmc import updates as up
-from instruct_tpu.mcmc.state import masked_z_counts
-from instruct_tpu.model import likelihood as lk
+from instruct_jax.config import ModelSpec
+from instruct_jax.data.synthetic import synthetic_panel
+from instruct_jax.kernels import fused_step as fs
+from instruct_jax.mcmc import updates as up
+from instruct_jax.mcmc.state import masked_z_counts
+from instruct_jax.model import likelihood as lk
 
 
 @pytest.fixture(scope="module", params=[(17, 23, 3, 3), (9, 300, 2, 2)])
@@ -35,13 +38,17 @@ def setup(request):
 
 
 def test_allele_counts_matches_xla(setup):
+    """The [K, L, A] allele-pop counts the sampling pass carries out of its
+    fresh z equal the XLA count loops (update_P, mcmc.c:815-845)."""
     data, freq, q, z, gen, gen_prop, k, a = setup
-    got = np.asarray(fs.allele_counts(z, data.geno, data.site_valid,
-                                      n_pops=k, max_alleles=a,
-                                      interpret=True))
+    z_new, qqnum, zcounts = fs.zq_sample_pass(
+        jnp.asarray([3, 4], jnp.int32), q, freq, data.geno,
+        data.site_valid, interpret=True)
     spec = ModelSpec(mode=2, n_pops=k)
-    want = np.asarray(up.allele_pop_counts(spec, data, z, None))
-    np.testing.assert_allclose(got, want, atol=1e-5)
+    want = np.asarray(up.allele_pop_counts(spec, data, z_new, None))
+    np.testing.assert_array_equal(np.asarray(zcounts), want)
+    np.testing.assert_array_equal(np.asarray(qqnum),
+                                  np.asarray(masked_z_counts(z_new, data, k)))
 
 
 def _xla_z_draw(u, q, freq, data, k):
@@ -184,34 +191,31 @@ def test_panel_loglik_f_pass_matches_xla(setup, pop):
                                rtol=2e-4, atol=2e-3)
 
 
-def test_carry_counts_vmem_gate(setup, monkeypatch):
-    """Past the VMEM budget the sampling pass drops its resident [K*A, L]
-    count output (zcounts None); everything else is unchanged and the
-    L-blocked allele_counts recount reproduces the carried counts."""
+def test_draws_independent_of_block_shape(setup):
+    """The counter-hash draws depend on (seed, individual, copy, locus)
+    only: two tilings — one of them far off the panel's multiples — give
+    the same z, the same counts and the same log-ratio columns, and the
+    draws equal the host-side twin fed back as injected uniforms."""
     data, freq, q, z_old, gen, gen_prop, k, a = setup
-    u = jax.random.uniform(jax.random.key(11), data.geno.shape,
-                           minval=1e-6, maxval=1 - 1e-6)
     wg = jnp.exp2(1.0 - jnp.stack([gen, gen_prop], 1).astype(jnp.float32))
+    seed = jnp.asarray([123, -77], jnp.int32)
     kw = dict(sample=True, ll_kind="gen", n_col=2, structure=True,
               full_ll=False, interpret=True)
-    full = fs._site_pass(0, q, freq, data.geno, data.site_valid, data.hom,
-                         z_old, wg, None, u, **kw)
-    assert full["zcounts"] is not None
-    monkeypatch.setattr(fs, "_CNT_LA_VMEM_BUDGET", 0)
-    slim = fs._site_pass(0, q, freq, data.geno, data.site_valid, data.hom,
-                         z_old, wg, None, u, **kw)
-    assert slim["zcounts"] is None
-    np.testing.assert_array_equal(np.asarray(slim["z"]),
-                                  np.asarray(full["z"]))
-    np.testing.assert_allclose(np.asarray(slim["qqnum"]),
-                               np.asarray(full["qqnum"]), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(slim["ll"]),
-                               np.asarray(full["ll"]), rtol=1e-5)
-    recount = fs.allele_counts(jnp.asarray(slim["z"], jnp.int8), data.geno,
-                               data.site_valid, n_pops=k, max_alleles=a,
-                               interpret=True)
-    np.testing.assert_allclose(np.asarray(recount),
-                               np.asarray(full["zcounts"]), atol=1e-4)
+    r1 = fs._site_pass(seed, q, freq, data.geno, data.site_valid, data.hom,
+                       z_old, wg, None, None, block=(16, 8, 16), **kw)
+    r2 = fs._site_pass(seed, q, freq, data.geno, data.site_valid, data.hom,
+                       z_old, wg, None, None, block=(8, 4, 128), **kw)
+    np.testing.assert_array_equal(np.asarray(r1["z"]), np.asarray(r2["z"]))
+    np.testing.assert_array_equal(np.asarray(r1["qqnum"]),
+                                  np.asarray(r2["qqnum"]))
+    np.testing.assert_array_equal(np.asarray(r1["zcounts"]),
+                                  np.asarray(r2["zcounts"]))
+    np.testing.assert_allclose(np.asarray(r1["ll"]), np.asarray(r2["ll"]),
+                               rtol=1e-5, atol=1e-5)
+    u = fs.site_uniforms(seed, *data.site_valid.shape)
+    r3 = fs._site_pass(seed, q, freq, data.geno, data.site_valid, data.hom,
+                       z_old, wg, None, u, **kw)
+    np.testing.assert_array_equal(np.asarray(r3["z"]), np.asarray(r1["z"]))
 
 
 @pytest.mark.parametrize("type_freq", [0, 1])

@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec, Schedule
-from instruct_tpu.data.synthetic import synthetic_panel
-from instruct_tpu.kselect import infer_k
-from instruct_tpu.mcmc.driver import run_mcmc
+from instruct_jax.config import ModelSpec, Schedule
+from instruct_jax.data.synthetic import synthetic_panel
+from instruct_jax.kselect import infer_k
+from instruct_jax.mcmc.driver import run_mcmc
 
 
 @pytest.fixture(scope="module")

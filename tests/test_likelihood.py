@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec
-from instruct_tpu.data.synthetic import synthetic_panel
-from instruct_tpu.model import likelihood as lk
+from instruct_jax.config import ModelSpec
+from instruct_jax.data.synthetic import synthetic_panel
+from instruct_jax.model import likelihood as lk
 
 
 def ref_genofreq(p0, p1, hom, g):

@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec, Schedule
-from instruct_tpu.data.synthetic import synthetic_panel
-from instruct_tpu.mcmc import marg_g as mg
-from instruct_tpu.mcmc.driver import run_mcmc
-from instruct_tpu.mcmc.step import build_step_parts
-from instruct_tpu.model import likelihood as lk
+from instruct_jax.config import ModelSpec, Schedule
+from instruct_jax.data.synthetic import synthetic_panel
+from instruct_jax.mcmc import marg_g as mg
+from instruct_jax.mcmc.driver import run_mcmc
+from instruct_jax.mcmc.step import build_step_parts
+from instruct_jax.model import likelihood as lk
 
 
 def _rand_state(seed, n_pops, data):

@@ -50,9 +50,9 @@ def test_two_process_chain_parallel(tmp_path):
     # single-process baseline: identical config, no mesh (pure vmap) —
     # per-chain keys and math are the same, so posteriors agree
     import jax
-    from instruct_tpu.config import ModelSpec, Schedule
-    from instruct_tpu.data.synthetic import synthetic_panel
-    from instruct_tpu.mcmc.driver import run_mcmc
+    from instruct_jax.config import ModelSpec, Schedule
+    from instruct_jax.data.synthetic import synthetic_panel
+    from instruct_jax.mcmc.driver import run_mcmc
 
     panel = synthetic_panel(n_indv=30, n_loci=24, n_pops=2, seed=11)
     spec = ModelSpec(mode=2, n_pops=2, use_pallas=False)

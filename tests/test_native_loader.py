@@ -6,14 +6,14 @@ import time
 import numpy as np
 import pytest
 
-from instruct_tpu.data import loader
-from instruct_tpu.data.loader import read_data, write_panel
-from instruct_tpu.data.synthetic import synthetic_panel
+from instruct_jax.data import loader
+from instruct_jax.data.loader import read_data, write_panel
+from instruct_jax.data.synthetic import synthetic_panel
 
 
 @pytest.fixture(scope="module")
 def native_lib():
-    from instruct_tpu import native
+    from instruct_jax import native
     lib = native.get_lib()
     if lib is None:
         pytest.skip("no C toolchain for the native tokenizer")

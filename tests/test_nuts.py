@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from instruct_tpu.samplers.nuts import NutsConfig, nuts_transition, run_nuts
+from instruct_jax.samplers.nuts import NutsConfig, nuts_transition, run_nuts
 
 
 def test_nuts_correlated_gaussian_moments():
@@ -47,10 +47,10 @@ def test_nuts_transition_is_finite_and_moves():
 
 
 def test_nuts_selfing_posterior_matches_gibbs():
-    from instruct_tpu.config import ModelSpec, Schedule
-    from instruct_tpu.data.synthetic import synthetic_panel
-    from instruct_tpu.mcmc.driver import run_mcmc
-    from instruct_tpu.samplers.run import run_sampler
+    from instruct_jax.config import ModelSpec, Schedule
+    from instruct_jax.data.synthetic import synthetic_panel
+    from instruct_jax.mcmc.driver import run_mcmc
+    from instruct_jax.samplers.run import run_sampler
 
     panel = synthetic_panel(n_indv=40, n_loci=80, n_pops=2,
                             selfing_rates=np.array([0.15, 0.75]), seed=3)
@@ -73,10 +73,10 @@ def test_nuts_selfing_posterior_matches_gibbs():
 def test_nuts_posterior_matches_gibbs_modes345(mode):
     # One NUTS-vs-Gibbs agreement check per extended mode family:
     # per-individual selfing (3), pop inbreeding F (4), individual F (5).
-    from instruct_tpu.config import ModelSpec, Schedule
-    from instruct_tpu.data.synthetic import synthetic_panel
-    from instruct_tpu.mcmc.driver import run_mcmc
-    from instruct_tpu.samplers.run import run_sampler
+    from instruct_jax.config import ModelSpec, Schedule
+    from instruct_jax.data.synthetic import synthetic_panel
+    from instruct_jax.mcmc.driver import run_mcmc
+    from instruct_jax.samplers.run import run_sampler
 
     panel = synthetic_panel(n_indv=40, n_loci=80, n_pops=2,
                             selfing_rates=np.array([0.1, 0.8]),

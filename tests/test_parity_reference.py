@@ -14,10 +14,10 @@ import jax
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec, Schedule
-from instruct_tpu.data.loader import read_data, write_panel
-from instruct_tpu.data.synthetic import synthetic_panel
-from instruct_tpu.mcmc.driver import run_mcmc
+from instruct_jax.config import ModelSpec, Schedule
+from instruct_jax.data.loader import read_data, write_panel
+from instruct_jax.data.synthetic import synthetic_panel
+from instruct_jax.mcmc.driver import run_mcmc
 
 from _refbinary import (build_reference, parse_q_matrix,
                         parse_selfing_rates, run_reference)
@@ -111,7 +111,7 @@ def test_tetraploid_no_reference_parity_by_design():
     forward_simulation), so posterior-S parity with the binary is
     unattainable for a correct implementation and is excluded here."""
     import numpy as np
-    from instruct_tpu.tetra.combinatorics import build_class_tables
+    from instruct_jax.tetra.combinatorics import build_class_tables
     ct = build_class_tables(np.array([2]), autopoly=True)
     g = int(ct.g_count[0])
     a = ct.self_mat[0, :g, :g]

@@ -11,11 +11,11 @@ import jax
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec, Schedule
-from instruct_tpu.data.loader import read_data, write_panel
-from instruct_tpu.data.synthetic import synthetic_panel
-from instruct_tpu.mcmc.driver import run_mcmc
-from instruct_tpu.report import write_report
+from instruct_jax.config import ModelSpec, Schedule
+from instruct_jax.data.loader import read_data, write_panel
+from instruct_jax.data.synthetic import synthetic_panel
+from instruct_jax.mcmc.driver import run_mcmc
+from instruct_jax.report import write_report
 
 from _refbinary import build_reference, run_reference
 

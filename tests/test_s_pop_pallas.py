@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from instruct_tpu.kernels.s_pop_pallas import s_pop_tail
+from instruct_jax.kernels.s_pop_pallas import s_pop_tail
 
 
 def np_replica(q, gen, rates, draws, *, subsweeps, delta0, gen_cap):

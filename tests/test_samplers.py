@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec
-from instruct_tpu.data.synthetic import synthetic_panel
-from instruct_tpu.samplers.hmc import HmcConfig, run_hmc
-from instruct_tpu.samplers.potential import MarginalModel
-from instruct_tpu.samplers.smc import SmcConfig, run_smc
-from instruct_tpu.samplers.svi import SviConfig, run_svi
+from instruct_jax.config import ModelSpec
+from instruct_jax.data.synthetic import synthetic_panel
+from instruct_jax.samplers.hmc import HmcConfig, run_hmc
+from instruct_jax.samplers.potential import MarginalModel
+from instruct_jax.samplers.smc import SmcConfig, run_smc
+from instruct_jax.samplers.svi import SviConfig, run_svi
 
 
 def test_hmc_gaussian_target():

@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec, Schedule
-from instruct_tpu.data.synthetic import synthetic_panel
-from instruct_tpu.mcmc.driver import run_mcmc
-from instruct_tpu.parallel.mesh import make_mesh
+from instruct_jax.config import ModelSpec, Schedule
+from instruct_jax.data.synthetic import synthetic_panel
+from instruct_jax.mcmc.driver import run_mcmc
+from instruct_jax.parallel.mesh import make_mesh
 
 
 needs_8 = pytest.mark.skipif(len(jax.devices()) < 8,
@@ -39,8 +39,8 @@ def test_gspmd_sharded_matches_unsharded():
 def _recompute_indv_loglik(panel, spec, res, n_ds):
     """Reassemble the final state from the blocked shard layout and
     recompute the per-individual log-lik on the UNSHARDED panel."""
-    from instruct_tpu.model import likelihood as lk
-    from instruct_tpu.parallel.loci_shard import unblock_sites
+    from instruct_jax.model import likelihood as lk
+    from instruct_jax.parallel.loci_shard import unblock_sites
 
     data = panel.data
     l, p = data.n_loci, data.ploid

@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec, Schedule
-from instruct_tpu.data.synthetic import synthetic_tetra_panel
-from instruct_tpu.mcmc.driver import run_mcmc
-from instruct_tpu.tetra import combinatorics as comb
-from instruct_tpu.tetra.engine import (build_tables, log_hwe_table,
+from instruct_jax.config import ModelSpec, Schedule
+from instruct_jax.data.synthetic import synthetic_tetra_panel
+from instruct_jax.mcmc.driver import run_mcmc
+from instruct_jax.tetra import combinatorics as comb
+from instruct_jax.tetra.engine import (build_tables, log_hwe_table,
                                        selfing_equilibrium)
 
 

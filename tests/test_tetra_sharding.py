@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec, Schedule
-from instruct_tpu.data.synthetic import synthetic_tetra_panel
-from instruct_tpu.mcmc.driver import run_mcmc
-from instruct_tpu.parallel import loci_shard as ls
-from instruct_tpu.parallel.mesh import make_mesh
-from instruct_tpu.tetra import engine as eng
+from instruct_jax.config import ModelSpec, Schedule
+from instruct_jax.data.synthetic import synthetic_tetra_panel
+from instruct_jax.mcmc.driver import run_mcmc
+from instruct_jax.parallel import loci_shard as ls
+from instruct_jax.parallel.mesh import make_mesh
+from instruct_jax.tetra import engine as eng
 
 needs_8 = pytest.mark.skipif(len(jax.devices()) < 8,
                              reason="needs 8 virtual devices")
@@ -26,7 +26,7 @@ def _mixed_class_tetra_data(n=8, l=23, seed=2):
     counts not divisible by the shard count — synthetic_tetra_panel with
     n_alleles=4 makes every locus quad-allelic, which left the original
     cross-shard assertion vacuous (round-5 self-review finding)."""
-    from instruct_tpu.data.dataset import make_dataset
+    from instruct_jax.data.dataset import make_dataset
     rng = np.random.default_rng(seed)
     n_alleles = rng.choice([2, 3, 4], size=l, p=[0.5, 0.3, 0.2])
     n_alleles[:3] = [2, 3, 4]                 # every class present
@@ -48,8 +48,8 @@ def test_tetra_shard_plan_class_uniform():
     every real locus appears exactly once, and build_tables on each
     shard's local view yields the same class map — the invariant that
     lets shard-0 tables serve every shard of the one traced program."""
-    from instruct_tpu.config import ModelSpec
-    from instruct_tpu.tetra import engine as eng
+    from instruct_jax.config import ModelSpec
+    from instruct_jax.tetra import engine as eng
 
     data = _mixed_class_tetra_data()
     n_shards = 4

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from instruct_tpu.config import ModelSpec
-from instruct_tpu.data.synthetic import synthetic_panel
-from instruct_tpu.mcmc import updates as up
-from instruct_tpu.mcmc.state import masked_z_counts
+from instruct_jax.config import ModelSpec
+from instruct_jax.data.synthetic import synthetic_panel
+from instruct_jax.mcmc import updates as up
+from instruct_jax.mcmc.state import masked_z_counts
 
 
 @pytest.fixture(scope="module")
